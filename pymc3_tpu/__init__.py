@@ -1,7 +1,7 @@
-"""pymc3_tpu — a TPU-native probabilistic programming framework.
+"""pymc3_tpu — a probabilistic programming framework on JAX.
 
 A ground-up rebuild of the capabilities of PyMC3 3.8 (the Theano-backed PPL)
-on JAX/XLA for TPUs: the model DSL traces to one fused XLA logp+grad program,
+on JAX/XLA for accelerators: the model DSL traces to one fused XLA logp+grad program,
 MCMC chains are a ``vmap`` batch axis sharded over device meshes, and all hot
 loops (NUTS tree building, leapfrog, VI steps, SMC mutation) run as on-device
 ``lax`` control flow.
@@ -9,7 +9,7 @@ loops (NUTS tree building, leapfrog, VI steps, SMC mutation) run as on-device
 Flat ``pm.*`` API surface mirrors ``pymc3/__init__.py:18-50``.
 """
 
-__version__ = "3.8.0.tpu0"
+__version__ = "3.8.0.jax0"
 
 import logging
 

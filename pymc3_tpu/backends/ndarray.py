@@ -92,7 +92,7 @@ class NDArray(BaseTrace):
                      stats_batch: Optional[List[Dict[str, np.ndarray]]] = None):
         """Bulk-record ``n`` draws at once from device-array results.
 
-        TPU extension: the fused sampler produces whole (draws, ...) blocks;
+        Extension: the fused sampler produces whole (draws, ...) blocks;
         copying them in one shot replaces the reference's per-draw pipe
         round-trip (``parallel_sampling.py:403-438``).
         """
@@ -170,7 +170,7 @@ def save_trace(trace: MultiTrace, directory: Optional[str] = None,
     """Save a MultiTrace to disk (cf. ``ndarray.py:32``).
 
     Layout: one subdirectory per chain with ``samples.npz``, ``stats.npz``
-    and json metadata; plus optional ``warmup_state.npz`` (TPU extension:
+    and json metadata; plus optional ``warmup_state.npz`` (an extension:
     serialized mass-matrix / step-size pytree).
     """
     if directory is None:

@@ -11,7 +11,6 @@ import shutil
 from typing import Dict, List
 
 import numpy as np
-import pandas as pd
 
 from ..model import modelcontext
 from .base import BaseTrace, MultiTrace
@@ -84,6 +83,8 @@ class Text(BaseTrace):
     # -- selection -----------------------------------------------------------
     def _load_df(self):
         if self.df is None:
+            import pandas as pd
+
             self.df = pd.read_csv(self.filename)
             for key, dtype in self.var_dtypes.items():
                 for fname in self.flat_names[key]:
@@ -140,6 +141,8 @@ def load(name, model=None) -> MultiTrace:
 
 def dump(name, trace, chains=None):
     """Store values from NDArray trace as CSV files (cf. ``text.py:204``)."""
+    import pandas as pd
+
     if not os.path.exists(name):
         os.mkdir(name)
     if chains is None:

@@ -4,7 +4,6 @@ from __future__ import annotations
 from itertools import product
 
 import numpy as np
-import pandas as pd
 
 __all__ = ["trace_to_dataframe"]
 
@@ -25,6 +24,8 @@ def trace_to_dataframe(trace, chains=None, varnames=None,
     """Convert trace to pandas DataFrame (cf. ``tracetab.py:26``): one
     column per raveled element of each (selected) variable, chains
     concatenated along rows."""
+    import pandas as pd
+
     shapes = trace._straces[trace.chains[0]].var_shapes
     if varnames is None:
         varnames = [v for v in trace.varnames

@@ -24,7 +24,7 @@ class ArrayOrdering:
     """An ordering for an array space (cf. ``pymc3/blocking.py:33``).
 
     ``vars`` must expose ``name``, ``unconstrained_shape`` and ``dtype`` —
-    free RVs in the TPU build. Slices index the *unconstrained* flat vector.
+    free RVs in this build. Slices index the *unconstrained* flat vector.
     """
 
     def __init__(self, vars):

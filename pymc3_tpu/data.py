@@ -2,7 +2,7 @@
 
 ``Data`` (`data.py:442`) is a named mutable array registered on the model and
 swapped with ``pm.set_data``; ``Minibatch`` (`data.py:111`) yields a random
-slice per evaluation for stochastic VI. In the TPU build a Minibatch node
+slice per evaluation for stochastic VI. In this build a Minibatch node
 resolves its slice *inside* the jitted VI step from a per-step PRNG key in the
 environment (``__rng__``), so minibatching is pure device-side indexing — no
 host round-trip per step.
@@ -145,11 +145,9 @@ class MinibatchNode(NamedNode):
         self._fold = int(random_seed if random_seed is not None else 42)
         # Batch-selection mode. "random" = the reference's semantics: bs
         # i.i.d. uniform row indices per step (``pymc3/data.py:111``) — an
-        # arbitrary 500-row GATHER, which XLA:TPU executes as a slow
-        # per-row dynamic-slice loop and which dominated the minibatch-
-        # ADVI benchmark (measured 2.0k steps/s vs 5.7k on the CPU
-        # stand-in). "window" (default) = TPU-native: shuffle the rows
-        # once at construction, then each step takes a CIRCULAR contiguous
+        # arbitrary bs-row GATHER per step. "window" (default) replaces the
+        # gather with one contiguous read: shuffle the rows once at
+        # construction, then each step takes a CIRCULAR contiguous
         # window at a uniform random offset — one lax.dynamic_slice. Every
         # row has equal marginal probability bs/N, so the scaled
         # likelihood (and its gradient) stays unbiased; the one-time
@@ -233,7 +231,7 @@ def Minibatch(data, batch_size=128, dtype=None, broadcastable=None,
     """Build a minibatch view node (cf. ``pymc3/data.py:111``).
 
     ``sampling='window'`` (default) draws each batch as a circular
-    contiguous window over a once-shuffled copy — one TPU-fast
+    contiguous window over a once-shuffled copy — one contiguous
     ``dynamic_slice``, equal marginal row probability, unbiased scaled
     likelihood. ``sampling='random'`` keeps the reference's i.i.d.
     uniform row gather."""

@@ -6,7 +6,7 @@ reference's hand-rolled ``scan`` loops for the incomplete beta
 intrinsic with gradients), the Bessel ``i0e/i1e`` Ops (``dist_math.py:288``)
 onto ``jss.i0e/i1e``, and the ``MvNormalLogp`` OpFromGraph with a hand-written
 cholesky gradient (``dist_math.py:185-248``) onto XLA ``cholesky`` +
-``triangular_solve`` which autodiff correctly on the MXU.
+``triangular_solve`` which autodiff correctly.
 """
 from __future__ import annotations
 
@@ -159,7 +159,7 @@ def MvNormal_logp(cov, delta):
     """Batched MvNormal log-density given covariance and residuals.
 
     Replaces ``MvNormalLogp`` (``dist_math.py:185-248``): XLA's ``cholesky`` +
-    ``triangular_solve`` run on the MXU and autodiff gives exactly the
+    ``triangular_solve`` run on the device and autodiff gives exactly the
     hand-derived gradient the reference codes by hand.
 
     cov : (k, k), delta : (..., k)
@@ -186,7 +186,7 @@ class SplineWrapper:
     The reference wraps ``scipy.interpolate`` splines as a Theano Op with a
     derivative spline (``dist_math.py:251-285``). Here we sample the spline
     densely once at construction (host side) and evaluate with
-    ``jnp.interp`` — pure XLA, differentiable, TPU-resident.
+    ``jnp.interp`` — pure XLA, differentiable, device-resident.
     """
 
     def __init__(self, spline, x_lo=None, x_hi=None, n=4096):

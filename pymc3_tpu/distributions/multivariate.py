@@ -2,7 +2,7 @@
 ``pymc3/distributions/multivariate.py`` (1920 LoC).
 
 All dense linear algebra (cholesky, triangular solve, eigh) lowers to XLA
-intrinsics that run on the MXU; the reference's hand-written cholesky
+intrinsics (cuSOLVER/cuBLAS on the GPU); the reference's hand-written cholesky
 gradients (``MvNormalLogp``, ``dist_math.py:185``) are unnecessary — XLA
 autodiff produces them.
 """

@@ -3,8 +3,8 @@
 Each kernel is callable as ``K(X) / K(X, Xs) / K(X, diag=True)`` and returns
 a symbolic :class:`~pymc3_tpu.node.Node` when any operand (input matrix or a
 hyperparameter like the lengthscale RV) is symbolic — the kernel matrix then
-traces into the model's XLA logp program, where the MXU does the distance /
-Gram work. Combination algebra ``Add``/``Prod`` (cf. ``cov.py:120-173``) and
+traces into the model's XLA logp program, which fuses the distance / Gram
+work. Combination algebra ``Add``/``Prod`` (cf. ``cov.py:120-173``) and
 the full kernel zoo: ExpQuad (``cov.py:331``), Matern52 (``:367``), Matern32
 (``:386``), Periodic (``:308``), RatQuad (``:346``), Exponential (``:415``),
 Cosine (``:429``), Linear (``:442``), Polynomial (``:472``), WarpedInput
@@ -19,6 +19,7 @@ from numbers import Number
 from typing import Optional, Sequence, Union
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from ..config import floatX
@@ -229,6 +230,108 @@ class WhiteNoise(Covariance):
             X, Xs, self.sigma)
 
 
+# --------------------------------------------------------------------------
+# Fused stationary covariance: K = f(pairwise squared distance)
+# --------------------------------------------------------------------------
+# kind -> f(d2); d2 is the squared distance in lengthscale units
+STATIONARY_KINDS = ("expquad", "matern52", "matern32", "matern12",
+                    "exponential")
+
+_EPS = 1e-12
+
+
+def _apply_covfn(kind, d2):
+    """K = f(d²) for one of ``STATIONARY_KINDS``."""
+    if kind == "expquad":
+        return jnp.exp(-0.5 * d2)
+    if kind == "matern52":
+        t = jnp.sqrt(5.0 * d2 + _EPS)
+        return (1.0 + t + (t * t) / 3.0) * jnp.exp(-t)
+    if kind == "matern32":
+        t = jnp.sqrt(3.0 * d2 + _EPS)
+        return (1.0 + t) * jnp.exp(-t)
+    if kind == "matern12":
+        return jnp.exp(-jnp.sqrt(d2 + _EPS))
+    if kind == "exponential":
+        # k = exp(-r/2) — matches Exponential (reference cov.py:415)
+        return jnp.exp(-0.5 * jnp.sqrt(d2 + _EPS))
+    raise ValueError(f"unknown stationary kind: {kind}")
+
+
+def _dcov_dd2(kind, d2):
+    """dK/d(d²) in closed form, for the custom VJP below."""
+    if kind == "expquad":
+        return -0.5 * jnp.exp(-0.5 * d2)
+    if kind == "matern52":
+        t = jnp.sqrt(5.0 * d2 + _EPS)
+        return -(5.0 / 6.0) * (1.0 + t) * jnp.exp(-t)
+    if kind == "matern32":
+        return -1.5 * jnp.exp(-jnp.sqrt(3.0 * d2 + _EPS))
+    if kind == "matern12":
+        r = jnp.sqrt(d2 + _EPS)
+        return jnp.exp(-r) * (-0.5 / r)
+    if kind == "exponential":
+        r = jnp.sqrt(d2 + _EPS)
+        return jnp.exp(-0.5 * r) * (-0.25 / r)
+    raise ValueError(f"unknown stationary kind: {kind}")
+
+
+def _sqdist_exact(X, Xs):
+    """Float32-safe pairwise squared distance.
+
+    Low-dim inputs (the usual GP case) take the exact pairwise-difference
+    form: the x²+x'²-2xx' matmul trick cancels catastrophically in float32
+    (O(1e-4) error on nearby points → indefinite K). Above 32 features the
+    (n, m, d) intermediate would dominate memory, so the matmul form is
+    used there."""
+    if X.shape[-1] <= 32:
+        d2 = jnp.sum((X[:, None, :] - Xs[None, :, :]) ** 2, axis=-1)
+    else:
+        d2 = (jnp.sum(X ** 2, axis=-1)[:, None]
+              + jnp.sum(Xs ** 2, axis=-1)[None, :] - 2 * X @ Xs.T)
+    return jnp.clip(d2, 0.0, jnp.inf)
+
+
+@functools.lru_cache(maxsize=None)
+def _stationary_op(kind):
+    @jax.custom_vjp
+    def cov(X, Xs):
+        return _apply_covfn(kind, _sqdist_exact(X, Xs))
+
+    def fwd(X, Xs):
+        return cov(X, Xs), (X, Xs)
+
+    def bwd(res, g):
+        X, Xs = res
+        # w = g * dK/dd²; then dX = 2(rowsum(w)·X − w@Xs): two matmuls on
+        # a recomputed d², instead of autodiff saving (n, m, d) residuals
+        d2 = _sqdist_exact(X, Xs)
+        w = g * _dcov_dd2(kind, d2)
+        dX = 2.0 * (jnp.sum(w, axis=1, keepdims=True) * X - w @ Xs)
+        dXs = 2.0 * (jnp.sum(w, axis=0)[:, None] * Xs - w.T @ X)
+        return dX, dXs
+
+    cov.defvjp(fwd, bwd)
+    return cov
+
+
+def stationary_cov(X, Xs=None, kind="expquad"):
+    """K = f(pairwise squared distance) for lengthscale-scaled inputs.
+
+    Parameters
+    ----------
+    X : (n, d) array.  Xs : (m, d) array or None (=> Xs = X).
+    kind : one of ``STATIONARY_KINDS``.
+    """
+    if kind not in STATIONARY_KINDS:
+        raise ValueError(f"kind must be one of {STATIONARY_KINDS}")
+    X = jnp.asarray(X)
+    Xs = X if Xs is None else jnp.asarray(Xs)
+    if X.ndim != 2 or Xs.ndim != 2:
+        raise ValueError("X and Xs must be rank-2 (n, d)")
+    return _stationary_op(kind)(X, Xs)
+
+
 class Stationary(Covariance):
     """Base for stationary kernels (cf. ``cov.py:262``).
 
@@ -258,20 +361,9 @@ class Stationary(Covariance):
         X = jnp.asarray(X, floatX()) / ls
         Xs = X if Xs is None else jnp.asarray(Xs, floatX()) / ls
         # Mean-centering is distance-invariant and shrinks the magnitudes
-        # entering either formula, which matters in float32 (TPU default).
+        # entering either formula, which matters in float32 (the default).
         c = jnp.mean(X, axis=0)
-        X = X - c
-        Xs = Xs - c
-        if X.shape[-1] <= 32:
-            # Low-dim inputs (the usual GP case): exact pairwise-difference
-            # form. The x²+x'²-2xx' matmul trick cancels catastrophically in
-            # float32 (O(1e-4) error on nearby points → indefinite K).
-            d2 = jnp.sum((X[:, None, :] - Xs[None, :, :]) ** 2, axis=-1)
-        else:
-            X2 = jnp.sum(X ** 2, axis=-1)
-            Xs2 = jnp.sum(Xs ** 2, axis=-1)
-            d2 = X2[:, None] + Xs2[None, :] - 2 * X @ Xs.T
-        return jnp.clip(d2, 0.0, jnp.inf)
+        return _sqdist_exact(X - c, Xs - c)
 
     def square_dist(self, X, Xs=None):
         X, Xs = self._slice(X, Xs)
@@ -292,16 +384,13 @@ class Stationary(Covariance):
     def full(self, X, Xs=None):
         raise NotImplementedError
 
-    # Pallas-fused covariance id (ops/pallas/gp_cov.py); subclasses whose
-    # k = f(d²) has a fused TPU kernel set this and route full() through
-    # _fused_full. On non-TPU backends stationary_cov falls back to the
-    # identical-math fused-XLA form, so numerics match everywhere.
+    # kernels whose k = f(d²) is one of STATIONARY_KINDS set this and route
+    # full() through _fused_full
     _fused_kind = None
 
     def _fused_full(self, X, Xs=None):
-        """K via the fused distance+covariance op (one VMEM-resident pass
-        per output tile on TPU — see ops/pallas/gp_cov.py)."""
-        from ..ops.pallas.gp_cov import stationary_cov
+        """K via ``stationary_cov``: one fused distance+covariance program
+        with a closed-form VJP."""
         kind = self._fused_kind
 
         def f(X_, Xs_, ls):

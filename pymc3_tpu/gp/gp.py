@@ -3,8 +3,8 @@
 ``Latent`` (``gp.py:65``), ``Marginal`` (``gp.py:344``), ``TP`` (``gp.py:226``),
 ``MarginalSparse`` (``gp.py:572``, FITC/VFE/DTC), ``LatentKron``
 (``gp.py:813``), ``MarginalKron`` (``gp.py:965``). All conditional algebra is
-symbolic node math lowering to XLA ``cholesky``/``triangular_solve`` on the
-MXU (replacing the reference's Theano ``cholesky``/``solve_lower`` graphs at
+symbolic node math lowering to XLA ``cholesky``/``triangular_solve``
+(replacing the reference's Theano ``cholesky``/``solve_lower`` graphs at
 ``gp.py:459``).
 """
 from __future__ import annotations

@@ -15,7 +15,7 @@ JITTER_DEFAULT = 1e-6
 
 
 def _default_jitter():
-    """float32 (the TPU-native dtype) needs a larger diagonal jitter for
+    """float32 (the default dtype) needs a larger diagonal jitter for
     stable cholesky of smooth kernels than the reference's float64 1e-6:
     Kss - AᵀA style conditionals accumulate O(1e-4) rounding noise."""
     return 5e-4 if floatX() == "float32" else JITTER_DEFAULT

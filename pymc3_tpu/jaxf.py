@@ -1,4 +1,4 @@
-"""JAX-side graph utilities — the TPU-native analog of ``pymc3/theanof.py``.
+"""JAX-side graph utilities — the JAX analog of ``pymc3/theanof.py``.
 
 The reference exposes symbolic-graph helpers (``gradient/hessian/jacobian``,
 ``inputvars``, ``join_nonshared_inputs``, ``make_shared_replacements``,
@@ -223,7 +223,7 @@ def generator(gen, default=None):
 
 
 class _RandomStream:
-    """Global forward-sampling RNG — the TPU-native stand-in for Theano's
+    """Global forward-sampling RNG — the JAX stand-in for Theano's
     ``MRG_RandomStreams`` (``theanof.py:398-430``): a counter-based
     ``jax.random`` key split per use, plus a seeded numpy Generator for the
     host-side ``random()`` paths."""

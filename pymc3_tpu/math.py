@@ -5,7 +5,7 @@ concrete arrays and returns a node (or concrete result when all inputs are
 concrete). The reference exposed Theano ops plus custom Ops (``LogDet``
 ``math.py:174``, ``BatchedDiag:263``, ``BlockDiagonalMatrix:311``, Kronecker
 algebra ``math.py:39-118``); here each is a plain jnp function — XLA fuses the
-elementwise chains and maps the linear algebra onto the MXU.
+elementwise chains and hands the linear algebra to the device's libraries.
 """
 from __future__ import annotations
 
@@ -239,7 +239,7 @@ def flat_outer(a, b):
     return apply(lambda x, y: jnp.outer(x, y).ravel(), a, b)
 
 
-# -- linear algebra (MXU paths) --------------------------------------------
+# -- linear algebra --------------------------------------------------------
 def cholesky(x, lower=True):
     import jax.scipy.linalg as jsl
     return apply(lambda m: jsl.cholesky(m, lower=lower), x)
@@ -315,7 +315,7 @@ def block_diagonal(matrices, sparse=False, format=None):
     """Stack of (k, n, m) matrices -> block-diagonal (k*n, k*m).
 
     cf. ``BlockDiagonalMatrix`` (``pymc3/math.py:311-373``); sparse output is
-    meaningless on TPU so `sparse` is accepted and ignored.
+    not supported here, so `sparse` is accepted and ignored.
     """
     if isinstance(matrices, (list, tuple)):
         def _blk(*ms):
@@ -355,7 +355,7 @@ def _kron_matrix_op(krons, m, op):
 
     Never materializes kron(K_1, ..., K_D); cf. ``kron_matrix_op``
     (``pymc3/math.py:62-99``). All reshapes are static so XLA maps the inner
-    contractions onto the MXU.
+    contractions onto matrix products.
     """
     def _apply(ms_and_m):
         *ms, x = ms_and_m

@@ -817,7 +817,7 @@ class Model(WithMemoization, metaclass=ContextMeta):
     # -- forward (predictive) sampling ---------------------------------------
     def draw_point(self, point=None):
         """One forward draw of all RVs in declaration order, conditioned on
-        any values already in ``point`` (the TPU-native replacement of the
+        any values already in ``point`` (the vectorized replacement of the
         reference's ``draw_values`` DAG interpreter,
         ``distributions/distribution.py:521`` — topological order is known at
         model build, SURVEY §7.7)."""

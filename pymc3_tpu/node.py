@@ -2,7 +2,7 @@
 
 The reference delegates its symbolic graph to Theano tensor variables
 (``pymc3/model.py:975`` builds ``FreeRV``/``ObservedRV`` as *Theano variable
-subclasses*). The TPU-native build replaces that with a minimal, pure-Python
+subclasses*). This build replaces that with a minimal, pure-Python
 expression DAG whose evaluation function is **traceable by JAX**: every node
 knows how to compute itself from an environment ``{rv_name: jnp array}``.
 Evaluating the DAG inside ``jax.jit``/``vmap`` traces it straight into XLA —
@@ -12,7 +12,7 @@ Eager *test values* (numpy) are computed at construction, mirroring Theano's
 ``compute_test_value='raise'`` discipline (``pymc3/model.py:818``): shape and
 dtype errors surface at model-definition time, exactly like the reference.
 
-Design notes (TPU-first):
+Design notes:
  - evaluation is memoized per call so shared subexpressions trace once —
    XLA sees a DAG, not a tree;
  - no data-dependent Python control flow lives in nodes; anything dynamic

@@ -2,7 +2,7 @@
 
 The reference wraps ``scipy.integrate.odeint`` (LSODA) in a Theano Op whose
 gradient comes from forward sensitivities integrated alongside the state
-(``ode/ode.py:27``, ``augment_system``, ``ode/utils.py:60``). On TPU the
+(``ode/ode.py:27``, ``augment_system``, ``ode/utils.py:60``). Here the
 solver itself is traced JAX: a fixed-grid RK4 integrator written with
 ``lax.scan``, differentiated *natively* by JAX (reverse-mode through the
 scan replaces the hand-built sensitivity system) — no host round trip, and
@@ -32,7 +32,7 @@ def _rk4_step(func, y, t, dt, theta):
 
 
 # Dormand-Prince 4(5) tableau (the embedded pair behind RK45 / ode45 — the
-# TPU-native replacement for LSODA's adaptivity, cf. ``ode/ode.py:115``).
+# on-device replacement for LSODA's adaptivity, cf. ``ode/ode.py:115``).
 _DP_C = np.array([0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0, 1.0])
 _DP_A = np.zeros((7, 7))
 _DP_A[1, 0] = 1 / 5

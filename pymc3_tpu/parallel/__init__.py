@@ -1,17 +1,17 @@
-"""Multi-device chain parallelism — the TPU-native "communication backend".
+"""Multi-device chain parallelism — the "communication backend".
 
 The reference runs one OS process per chain with a Pipe control protocol and
-shared-memory sample transport (``pymc3/parallel_sampling.py:98-244``). On
-TPU, chains advance in lockstep SPMD: the chain axis is sharded over a
+shared-memory sample transport (``pymc3/parallel_sampling.py:98-244``). Here
+chains advance in lockstep SPMD: the chain axis is sharded over a 1-D
 ``jax.sharding.Mesh`` with ``shard_map``, each device vmaps its local block
 of chains, and cross-chain reductions (pooled Welford mass-matrix adaptation,
-on-device R-hat) are exact ``psum`` collectives riding ICI — no message
-protocol exists because there is nothing asynchronous to coordinate
-(SURVEY §2.4, §5 "Distributed communication backend").
+on-device R-hat) are exact ``psum`` collectives, which XLA hands to NCCL on
+GPUs — no message protocol exists because there is nothing asynchronous to
+coordinate (SURVEY §2.4, §5 "Distributed communication backend").
 
-Multi-host bring-up goes through ``jax.distributed.initialize`` (DCN); the
-mesh then spans all hosts' devices and the same ``shard_map`` program scales
-from 1 chip to a pod slice unchanged.
+Multi-host bring-up goes through ``jax.distributed.initialize``; the mesh
+then spans all hosts' devices and the same ``shard_map`` program runs
+unchanged from one device to many.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ LOCAL_CHAIN_AXIS = "chains_local"  # vmap axis: chains within one device
 def initialize_distributed(coordinator_address: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None):
-    """Multi-host bring-up over DCN (cf. the reference's per-process fork at
+    """Multi-host bring-up (cf. the reference's per-process fork at
     ``parallel_sampling.py:107``; here hosts join one SPMD program)."""
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
@@ -98,8 +98,8 @@ def shard_block_fn(chain_block: Callable, devices: Optional[Sequence] = None,
     warmup statistics. The draw-index vector ``idxs`` is replicated.
 
     This is the streaming (chunked-scan) counterpart of
-    :func:`shard_chain_fn`: the driver calls it once per block, keeping HBM
-    bounded (SURVEY §5 "Distributed communication backend").
+    :func:`shard_chain_fn`: the driver calls it once per block, keeping device
+    memory bounded (SURVEY §5 "Distributed communication backend").
     """
     if mesh is None:
         mesh = make_mesh(devices)

@@ -22,7 +22,7 @@ def sample_smc(draws=1000, kernel="metropolis", n_steps=25, parallel=False,
     ``sample_smc.py:19``): stage loop while β<1.
 
     ``devices``/``mesh`` shard the particle axis over a device mesh —
-    per-particle logp and mutation run on the owning chip (the TPU-native
+    per-particle logp and mutation run on the owning device (the
     replacement for the reference's ``mp.Pool``; SURVEY §2.4). ``draws``
     must then be a multiple of the device count.
 

@@ -3,7 +3,7 @@
 Tempered-posterior SMC with **device-resident particle state**: the
 ``(draws, dim)`` particle array and its per-particle statistics
 (prior/likelihood logp, per-chain acceptance, proposal scalings) live in
-HBM for the whole run — between stages the host sees only scalars
+device memory for the whole run — between stages the host sees only scalars
 (β, acceptance rate, log-evidence increment). Stage math maps to the
 hardware as:
 
@@ -13,7 +13,7 @@ hardware as:
 - systematic resampling (reference multinomial, ``smc.py:201-213``) is a
   sorted-uniform ``searchsorted`` + gather, entirely on device.
 - the MVN proposal covariance (``update_proposal``, ``smc.py:215``) is a
-  centered ``XᵀX`` matmul on the MXU + device cholesky.
+  centered ``XᵀX`` matmul + device cholesky.
 - IMH mutation (``metrop_kernel``, ``smc.py:316``) is one jitted
   ``fori_loop`` chain vmapped over all particles, with β/chol/n_steps as
   runtime arguments so the program compiles ONCE for the whole run.
@@ -157,7 +157,7 @@ def _resample_gather(key, weights, arrays, sharding=None):
 @jax.jit
 def _particle_cov_chol(X):
     """Proposal covariance of the (resampled, equally-weighted) particles
-    as a centered Gram matmul on the MXU + device cholesky
+    as a centered Gram matmul + device cholesky
     (cf. ``np.cov`` + host cholesky, ``smc.py:215-224``)."""
     n = X.shape[0]
     mu = jnp.mean(X, axis=0)
@@ -245,8 +245,8 @@ class SMC:
 
         With a sharding set, jitted vmapped particle functions run SPMD:
         XLA partitions the particle axis across devices, per-particle logp
-        and mutation execute on the owning chip, and cross-device movement
-        happens only at the resampling gather — the TPU-native replacement
+        and mutation execute on the owning device, and cross-device
+        movement happens only at the resampling gather — the replacement
         for the reference's ``mp.Pool.starmap`` (``smc/smc.py:156-272``)."""
         arr = jnp.asarray(x)
         if self.sharding is None:
@@ -317,7 +317,7 @@ class SMC:
 
     def initialize_logp(self):
         """cf. ``smc.py:152`` — particle-sharded logp evaluation; results
-        stay in HBM."""
+        stay in device memory."""
         self.prior_logp = self.prior_logp_fn(self.posterior)
         self.likelihood_logp = self.likelihood_logp_fn(self.posterior)
 

@@ -13,7 +13,6 @@ from collections import namedtuple
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
-import pandas as pd
 from scipy import stats as st
 
 __all__ = [
@@ -472,6 +471,8 @@ def compare(model_dict, ic="loo", method="stacking", scale="deviance"):
             f"d_{ic}": d, "weight": 0.0, "se": res[1], "dse": dse,
             "warning": bool(res[3]),
         })
+    import pandas as pd
+
     df = pd.DataFrame(rows, index=[n if isinstance(n, str) else f"model_{i}"
                                    for i, (n, _) in enumerate(ics)])
     # pseudo-BMA weights
@@ -537,6 +538,8 @@ def summary(trace, var_names=None, round_to=2, alpha=0.05, batches=None,
             else:
                 idx = np.unravel_index(i, ary.shape[2:])
                 index.append(f"{name}[{','.join(map(str, idx))}]")
+    import pandas as pd
+
     df = pd.DataFrame(rows, index=index)
     if round_to is not None:
         df = df.round(round_to)

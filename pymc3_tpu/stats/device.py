@@ -1,7 +1,7 @@
 """On-device convergence diagnostics.
 
-Batched jnp implementations of split R-hat and bulk ESS that run on the TPU
-over the raw ``(chains, draws, dim)`` sample block — for the 10k-chain
+Batched jnp implementations of split R-hat and bulk ESS that run on the
+device over the raw ``(chains, draws, dim)`` sample block — for the 10k-chain
 regime the host round-trip of ``pymc3_tpu.stats`` (numpy, per-element loop)
 dominates; these compute every parameter at once on the device and can run
 *inside* a sharded program with a ``psum`` over the chain mesh axis

@@ -50,7 +50,7 @@ def leapfrog(logp_dlogp_fn: Callable, var, epsilon,
     ``epsilon`` may be negative (backwards integration for the NUTS left
     expansion). ``var`` is the inverse mass — an (n,) diagonal or an (n,n)
     dense matrix (``mass_velocity`` dispatches). Fully traceable; when the
-    caller vmaps over chains every chain advances in lockstep on the VPU/MXU.
+    caller vmaps over chains every chain advances in lockstep.
     """
     epsilon = jnp.asarray(epsilon, dtype=floatX())
     axpy = lambda a, x, y: y + a * x

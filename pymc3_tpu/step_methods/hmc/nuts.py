@@ -10,8 +10,8 @@ is a ``lax.while_loop`` over tree depth, and each subtree of ``2^depth``
 leaves is built by an inner ``lax.while_loop`` that advances an
 **(even, odd) leaf pair per iteration** with **O(log) memory U-turn
 checkpointing** — the even leaf stores (momentum, cumulative momentum sum)
-into a ``max_treedepth+2``-row stack via a dense one-hot blend (a vmapped
-dynamic-index scatter is pathological on TPU), and the odd leaf checks the
+into a ``max_treedepth+2``-row stack via a dense one-hot blend (instead of
+a vmapped dynamic-index scatter), and the odd leaf checks the
 generalized U-turn criterion against the contiguous checkpoint range
 identified by its index's binary structure. Pairing halves the loop trip
 count and runs the checkpoint/U-turn row math once per pair instead of
@@ -23,7 +23,7 @@ doublings (Stan-style, matching the reference's ``logbern`` scheme at
 (``nuts.py:169-172``).
 
 Everything is a pure function of pytrees, so the driver ``lax.scan``s draws,
-``vmap``s chains, and ``shard_map``s the chain axis over a TPU mesh.
+``vmap``s chains, and ``shard_map``s the chain axis over a device mesh.
 """
 from __future__ import annotations
 
@@ -162,9 +162,9 @@ def _build_subtree(key, edge0, eps_signed, n_leaves, h0, var, logp_dlogp_fn,
         p_sum_a = s.p_sum + edge_a.p
         p_first = jnp.where(leaf == 0, edge_a.p, s.p_first)
 
-        # checkpoint store via dense one-hot blend (a vmapped dynamic
-        # .at[].set() lowers to per-lane scatter, which TPUs execute
-        # poorly; this is pure VPU math at deterministic cost)
+        # checkpoint store via dense one-hot blend: a vmapped dynamic
+        # .at[].set() lowers to a per-lane scatter; the blend is dense
+        # elementwise math at a fixed O(depth·n) cost per leaf pair
         row = _popcount(leaf >> 1)
         onehot = (rows == row).astype(floatX())[:, None]
         r_ckpts = s.r_ckpts * (1.0 - onehot) + onehot * edge_a.p[None, :]
@@ -316,8 +316,8 @@ def find_reasonable_eps(step, q0_batch, seed):
     Dual averaging seeded from the dimension heuristic 0.25 d^-1/4
     overshoots small on tightly-scaled posteriors; at 8192 lockstep
     chains the first tuning block then runs hundreds of max-depth
-    (2^10-leapfrog) trees — minutes of wall before the first kept draw
-    (r4 decomposition, BENCHMARKS.md). One vmapped leapfrog per probe
+    (2^10-leapfrog) trees before the first kept draw. One vmapped
+    leapfrog per probe
     iteration (<=30) costs milliseconds and starts the bar where the
     posterior actually lives. Returns a float eps (the input step_size
     unchanged if probing is not applicable)."""
@@ -368,9 +368,8 @@ def find_reasonable_eps(step, q0_batch, seed):
     eps = float(eps)
     if np.isfinite(eps) and 1e-10 < eps < 1e4:
         # The shrinkage target stays at the standard 10x (da_init): a
-        # 2x target was tried and measurably biased the tuned eps high
-        # on short tunes (GP asv row: 65 vs 81 ESS/s), while the warmup
-        # depth caps already bound the cost of the 10x overshoot.
+        # 2x target biased the tuned eps high on short tunes, while the
+        # warmup depth caps already bound the cost of the 10x overshoot.
         return eps
     return step.step_size
 
@@ -432,8 +431,8 @@ class NUTS(GradientSharedStep):
         # warmup-phase stuck-lane rescue (pooled runs only): at >=8k
         # jittered chains the odd lane lands in a region where the POOLED
         # step size diverges every draw and never recovers — one constant
-        # chain craters cross-chain ESS (BENCHMARKS.md r3, 8192-chain
-        # sweep point). Failure detection per SURVEY §5, made TPU-native:
+        # chain craters cross-chain ESS (seen at 8192 chains). Failure
+        # detection per SURVEY §5, done on device:
         # lanes whose tuning window is ~all divergences teleport to the
         # pooled best-logp lane at window boundaries (tuning is already
         # non-Markovian, post-tune draws are untouched).
@@ -489,7 +488,7 @@ class NUTS(GradientSharedStep):
         # Per-lane step-size fallback under POOLED adaptation: a lane
         # trapped in a high-curvature pocket (funnel bottom) diverges at
         # the pooled eps every draw and would otherwise never move — the
-        # 8192-chain stuck-lane pathology (BENCHMARKS.md r3). Its lane
+        # 8192-chain stuck-lane pathology. Its lane
         # multiplier halves on divergence and decays back toward 1 on
         # clean draws, so the bulk runs at exactly the pooled eps while a
         # trapped lane gets the small eps it needs to escape. NUTS is
@@ -525,16 +524,14 @@ class NUTS(GradientSharedStep):
             # Harder cap while the POOLED mass matrix is still warming
             # (first promotions at draws 3/10/25, quadpotential.py): on an
             # ill-conditioned target the first ~25 draws otherwise run
-            # 2^8-leapfrog trees in lockstep across every lane — 75% of
-            # the first tuning block's wall at 8192 chains, with zero
-            # divergences (r5 decomposition). Truncated early trajectories
+            # 2^8-leapfrog trees in lockstep across every lane, with zero
+            # divergences. Truncated early trajectories
             # cost mixing per chain, but the mass estimate pools across
             # thousands of jittered chains, so cross-chain spread — not
             # within-chain mixing — carries the early adaptation.
             # Lockstep cost is the MAX lane depth per draw, not the mean:
             # during the eps ramp a straggler lane at the cap charges
-            # every lane 2^cap leapfrogs (mean depth 5.0, max 8 measured
-            # over draws 32-100). Cap 6 through the early phase bounds
+            # every lane 2^cap leapfrogs. Cap 6 through the early phase bounds
             # the straggler tax at 4x the steady-state depth-4 draw.
             mtd = jnp.where(
                 tctx.tune & (tctx.step_idx < 32),

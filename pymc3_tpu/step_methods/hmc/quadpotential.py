@@ -92,7 +92,7 @@ def welford_var(state: WelfordState):
 
 def welford_merge_psum(state: WelfordState, axis_name: str) -> WelfordState:
     """Exact cross-device pooled merge of Welford states via ``psum`` over the
-    chain-sharding mesh axis — the TPU-native replacement for per-process
+    chain-sharding mesh axis — the replacement for per-process
     adaptation (SURVEY §5)."""
     w_tot = jax.lax.psum(state.w, axis_name)
     mean_tot = jax.lax.psum(state.w * state.mean, axis_name) / w_tot
@@ -156,9 +156,8 @@ def diag_adapt_update(state: DiagAdaptState, sample, tune,
         # C — while the foreground still carries the init prior (weight
         # 10 PER CHAIN = 10 C pooled) and the reference's first promotion
         # waits 101 draws. On an ill-conditioned target that means ~100
-        # draws of max-depth trees on a near-identity mass: measured
-        # 292 s for the first 25 draws of radon at 8192 chains (r5
-        # time-to-first-draw decomposition). Promote at n = 3/10/25 once
+        # draws of max-depth trees on a near-identity mass, in lockstep
+        # across every chain. Promote at n = 3/10/25 once
         # the pooled sample count clears 1024. lax.psum of a constant
         # folds at compile time (axis sizes are static), so this costs
         # nothing per draw.
@@ -207,8 +206,7 @@ def diag_random(key, inv_stds):
 # ---------------------------------------------------------------------------
 def mass_velocity(mass, p):
     """v = M^{-1} p for a diagonal (1-D ``mass``) or dense (2-D) inverse
-    mass matrix. Accepts batched momenta of shape (..., n); the dense
-    product rides the MXU."""
+    mass matrix. Accepts batched momenta of shape (..., n)."""
     if mass.ndim == 2:
         return p @ mass  # M^{-1} symmetric
     return p * mass

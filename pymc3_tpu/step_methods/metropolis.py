@@ -460,7 +460,7 @@ class DEMetropolis(ArrayStepShared):
 
     The kernel steps the FULL population at once: the population lives as one
     ``(chains, dim)`` device array and crossover is a random gather along the
-    chain axis — the TPU-native analog of the reference's cross-process
+    chain axis — the vectorized analog of the reference's cross-process
     ``link_population`` broadcast (``arraystep.py:216``).
     """
 

@@ -23,7 +23,7 @@ def main():
     import jax
     import pymc3_tpu as pm
     from pymc3_tpu.config import enable_compilation_cache
-    enable_compilation_cache("bench")
+    enable_compilation_cache()
 
     N = int(os.environ.get("ADVI_N", 50_000))
     d = int(os.environ.get("ADVI_D", 100))

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Compile-cost probe: pure XLA compile wall of the blocked radon-NUTS
-program vs chain count (VERDICT r3 #1).
+program vs chain count.
 
 The r3 sweep reported ``compile_wall_s`` = whole first sample() call, which
 folds a full warmup+draw run into the "compile" number. This probe uses the
@@ -9,8 +9,8 @@ AOT split in ``_device_sample`` (trace = ``lower_s``, pure XLA compile =
 one JSON line per chain count.
 
 Modes (env):
-  COMPILE_CACHE=fresh   — new empty cache dir => cold compiles (default)
-  COMPILE_CACHE=keep    — reuse the persistent dir => warm-start proof
+  COMPILE_CACHE=fresh   — persistent cache off => cold compiles (default)
+  COMPILE_CACHE=keep    — the persistent cache => warm-start proof
                           (run the script twice; second process should show
                           compile_s of seconds)
   COMPILE_TUNE/COMPILE_DRAWS — program constants (default 1000/2000 so the
@@ -21,7 +21,6 @@ Usage: python scripts/bench_compile.py [chains ...]
 """
 import json
 import os
-import shutil
 import sys
 import time
 
@@ -34,14 +33,10 @@ def main():
     import jax
 
     mode = os.environ.get("COMPILE_CACHE", "fresh")
-    cache_name = os.environ.get("COMPILE_CACHE_NAME", "compile_probe")
     if mode == "fresh":
-        # wipe only our probe-named cache dir, never the bench cache
-        path = enable_compilation_cache(cache_name)
-        shutil.rmtree(path, ignore_errors=True)
-        os.makedirs(path, exist_ok=True)
+        jax.config.update("jax_enable_compilation_cache", False)
     else:
-        enable_compilation_cache(cache_name)
+        enable_compilation_cache()
 
     from bench import build_model
     model = build_model(pm)

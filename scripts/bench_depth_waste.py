@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Lockstep depth-variance waste vs chain count (VERDICT r3 #4 roofline).
+"""Lockstep depth-variance waste vs chain count.
 
 All vmapped lanes advance together: each draw's wall is set by the
 DEEPEST lane's tree, so utilization = sum(tree_sizes) / (N * sum of
@@ -21,7 +21,7 @@ def main():
     import pymc3_tpu as pm
     from pymc3_tpu.config import enable_compilation_cache
     import jax
-    enable_compilation_cache("bench")
+    enable_compilation_cache()
     from bench import build_model
     model = build_model(pm)
 

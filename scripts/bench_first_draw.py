@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Time-to-first-kept-draw at large chain counts (VERDICT r4 #2).
+"""Time-to-first-kept-draw at large chain counts.
 
 Measures the wall of a (tune=FIRST_TUNE, draws=1) radon run — i.e. the
 first tuning block plus one kept draw — with the Stan-style step-size
@@ -23,7 +23,7 @@ def main():
     import numpy as np
     import pymc3_tpu as pm
     from pymc3_tpu.config import enable_compilation_cache
-    enable_compilation_cache("bench")
+    enable_compilation_cache()
     from bench import build_model
 
     chains = int(os.environ.get("FD_CHAINS", 8192))

@@ -1,9 +1,9 @@
 #!/usr/bin/env python
 """Layer-by-layer decomposition of the NUTS inner loop on the current
-backend (follow-up to bench_nuts_profile.py: production shows ~8x vs bare
-leapfrog on TPU but only ~1.5x on CPU, so the cost is in HOW the loop is
-executed on TPU, not in the tree algorithm). Times, at a fixed chain
-batch, cost per leapfrog of:
+backend (follow-up to bench_nuts_profile.py: when production costs much
+more per leapfrog than a bare leapfrog scan, this says whether the cost is
+in HOW the loop is executed or in the tree algorithm). Times, at a fixed
+chain batch, cost per leapfrog of:
 
   1. scan      — lax.scan of K leapfrogs (the pipelined baseline)
   2. while     — identical K leapfrogs under lax.while_loop (adds the
@@ -40,7 +40,7 @@ def timed(fn, *args, reps=20):
 def main():
     import pymc3_tpu as pm
     from pymc3_tpu.config import enable_compilation_cache, floatX
-    enable_compilation_cache("bench")
+    enable_compilation_cache()
     from bench import build_model
     from pymc3_tpu.step_methods.hmc.nuts import _build_subtree, nuts_draw
     from pymc3_tpu.step_methods.hmc.integration import (

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""ODE-under-NUTS cost decomposition (VERDICT r3 #6): where the freefall
+"""ODE-under-NUTS cost decomposition: where the freefall
 benchmark's time goes, on the current backend.
 
 Layers:
@@ -58,7 +58,7 @@ def main():
     import jax.numpy as jnp
     import pymc3_tpu as pm
     from pymc3_tpu.config import enable_compilation_cache
-    enable_compilation_cache("bench")
+    enable_compilation_cache()
     backend = jax.default_backend()
 
     for bound_name, ms in (("blanket_320", 320), ("auto_calibrated", None)):
@@ -91,7 +91,7 @@ def main():
                 "total_us": round(t * 1e6, 1),
                 "per_chain_us": round(t * 1e6 / chains, 2)}), flush=True)
 
-        # layer 4: end-to-end at asv config and a TPU-native chain count
+        # layer 4: end-to-end at the asv config and a larger chain count
         for chains in (2, 16):
             with model:
                 pm.sample(draws=500, tune=1000, chains=chains,

@@ -1,5 +1,5 @@
-"""Test fixtures. Environment setup (true-CPU re-exec, virtual 8-device
-mesh, compilation cache) lives in the repo-root conftest.py."""
+"""Test fixtures. Environment setup (CPU pin, virtual 8-device mesh,
+compilation cache) lives in the repo-root conftest.py."""
 import numpy as np
 import pytest
 
@@ -7,6 +7,20 @@ import pytest
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running multi-process simulations")
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU; run on a card with "
+        "JAX_PLATFORMS=cuda python -m pytest tests -m gpu")
+
+
+@pytest.fixture(autouse=True)
+def _gpu_only(request):
+    """Skip ``gpu``-marked tests unless JAX's default backend is a GPU.
+    Decided here, per test, never at import or collection time."""
+    if request.node.get_closest_marker("gpu") is not None:
+        import jax
+
+        if jax.default_backend() != "gpu":
+            pytest.skip("needs an NVIDIA GPU (JAX_PLATFORMS=cuda)")
 
 
 @pytest.fixture(scope="function")

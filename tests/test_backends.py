@@ -51,7 +51,7 @@ class TestNDArray:
             t2 = pm.load_trace(d)
         np.testing.assert_allclose(trace.get_values("x"),
                                    t2.get_values("x"))
-        # warmup state checkpoint present (TPU extension)
+        # warmup state checkpoint present (an extension)
         assert getattr(t2._straces[0], "warmup_state", None) is not None
 
     def test_merge_traces(self, sampled):

@@ -6,7 +6,7 @@ plus the logcdf tail-stability and broadcasting cases where distribution
 bugs actually live.
 
 The existing ``test_distributions*.py`` pin most distributions at one
-parameter set; this file is the depth pass (VERDICT r4 #3)."""
+parameter set; this file is the depth pass."""
 import itertools
 
 import numpy as np

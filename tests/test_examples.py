@@ -84,7 +84,7 @@ def test_rankdata_ordered():
 
 
 # ---------------------------------------------------------------------------
-# round 5: every example module runs end-to-end (VERDICT r4 #7; cf. the
+# round 5: every example module runs end-to-end (cf. the
 # reference's tests/test_examples.py:1 breadth)
 # ---------------------------------------------------------------------------
 

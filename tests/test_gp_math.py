@@ -1,5 +1,5 @@
 """GP math-vs-hand-cholesky matrix (cf. the reference's ``tests/test_gp.py``
-— the classes VERDICT r3 flagged as untested: WarpedInput/Gibbs/ScaledCov/
+— classes that had no test before: WarpedInput/Gibbs/ScaledCov/
 Coregion numeric pins, Marginal-vs-Latent logp, sparse approximations
 vs exact, TP at high nu, LatentKron/MarginalKron vs their dense
 counterparts)."""

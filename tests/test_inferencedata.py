@@ -78,7 +78,7 @@ class _FakeStep:
 
 def test_log_likelihood_group_and_dims():
     """idata_kwargs plumbing: log_likelihood is computed pointwise on
-    device, coords/dims flow through (ADVICE r2)."""
+    device, coords/dims flow through."""
     import scipy.stats as st
 
     obs = np.array([0.1, -0.3, 0.5])

@@ -1,6 +1,6 @@
 """Minibatch container semantics (cf. ``pymc3/data.py:111`` and the
 reference's ``tests/test_data_container.py``): index bookkeeping of the
-TPU-native window mode, degenerate batch sizes, and X/y pairing."""
+window mode, degenerate batch sizes, and X/y pairing."""
 import numpy as np
 import jax
 import pytest

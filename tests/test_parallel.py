@@ -2,7 +2,7 @@
 
 The reference tests its process-based communication backend by exercising
 the real pipe protocol in-process (``pymc3/tests/test_parallel_sampling.py:
-19-73``, no mocks). The TPU-native analog: drive the real ``shard_map``
+19-73``, no mocks). The analog here: drive the real ``shard_map``
 path — sharded end-to-end sampling, the exact pooled-Welford ``psum`` merge,
 block-carry continuity, and the chain/device divisibility contract — on the
 virtual 8-device CPU mesh set up by the root conftest.

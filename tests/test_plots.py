@@ -1,14 +1,16 @@
 """Plot smoke tests (cf. reference ``pymc3/tests/test_plots.py``): every
 plotting entry point renders on a real trace without error and returns
 matplotlib axes, on the Agg backend."""
-import matplotlib
-matplotlib.use("Agg")
-import matplotlib.pyplot as plt
-
 import numpy as np
 import pytest
 
 import pymc3_tpu as pm
+
+# matplotlib is optional: where it is not installed, `pytest -m gpu` must
+# still collect this module
+matplotlib = pytest.importorskip("matplotlib")
+matplotlib.use("Agg")
+import matplotlib.pyplot as plt  # noqa: E402
 
 
 @pytest.fixture(scope="module")

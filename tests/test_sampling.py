@@ -196,7 +196,7 @@ class TestIterSample:
 
 class TestBlockPadding:
     """The equalize-blocks padding steps past ``total`` must not advance
-    kernel state or RNG (ADVICE r2, ``sampling.py`` _mask_padding)."""
+    kernel state or RNG (``sampling.py`` _mask_padding)."""
 
     def test_final_state_invariant_to_block_size(self):
         start, model, _ = models.simple_model()

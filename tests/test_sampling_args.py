@@ -1,7 +1,7 @@
 """``sample()`` argument/seed/reproducibility matrix (cf. the reference's
-``tests/test_sampling.py:41-238`` — the depth VERDICT r3 asked for).
+``tests/test_sampling.py:41-238`` — at the reference's depth).
 
-TPU-native deltas from the reference matrix: ``cores`` is accepted but
+Deltas from the reference matrix: ``cores`` is accepted but
 inert (chains are a vmap axis), chain parallelism is always on, and the
 callback cancel granularity is a streaming block rather than a draw.
 """
@@ -246,7 +246,7 @@ class TestRecordStatsSubset:
 
 
 class TestWarmResume:
-    """``resume_from`` (TPU extension, SURVEY §5 checkpoint/resume — the
+    """``resume_from`` (an extension, SURVEY §5 checkpoint/resume — the
     gap the reference leaves open: its sampler state is never
     checkpointed): continue a run with tune=0 from the previous kernel
     state."""

@@ -206,7 +206,7 @@ class TestCompoundStateConsistency:
 
 
 def test_warmup_stuck_lane_rescue():
-    """Pooled-adaptation failure detection (SURVEY §5, TPU-native): a lane
+    """Pooled-adaptation failure detection (SURVEY §5, on device): a lane
     initialized in a pathological region diverges every draw under the
     POOLED step size and never recovers; with rescue_stuck (default) it
     teleports to the pooled best-logp lane at a tuning-window boundary and
@@ -259,7 +259,7 @@ def test_per_lane_eps_scale_bounds_and_health():
 
 def test_leapfrog_reversible_dense_mass():
     """Reversibility with a DENSE inverse mass (the round-4
-    mass_velocity MXU path)."""
+    mass_velocity path)."""
     import jax.numpy as jnp
     _, model, _ = models.simple_model()
     logp_fn = jax.value_and_grad(model.make_logp_fn())

@@ -1,7 +1,7 @@
 """Conjugate-ELBO matrix (cf. the reference's
 ``tests/test_variational_inference.py:457-716`` — exact MC-ELBO values,
 total_size likelihood scaling, and the fit-method × full/minibatch
-posterior grid VERDICT r3 asked for)."""
+posterior grid)."""
 import numpy as np
 import pytest
 

@@ -1,6 +1,6 @@
 """Round-5 warmup accelerators: the Stan-style step-size probe, the
 early pooled mass-window promotions, and the warmup depth-cap schedule
-(BENCHMARKS.md round-5 time-to-first-draw decomposition)."""
+(the time-to-first-draw work)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
